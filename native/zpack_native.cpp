@@ -450,8 +450,8 @@ size_t zn_lz4_decompress(const uint8_t* src, size_t n,
 
 }  // extern "C"  (templates cannot have C linkage)
 
-// Serialize LZ4 frame-block sections from DEVICE match tables: the TPU
-// tokenizer (zpack_tpu/kernels/lz4_{jax,pallas}.py) finds per-position
+// Serialize LZ4 frame-block sections from DEVICE match tables: the device
+// tokenizer (zpack_tpu/kernels/lz4_jax.py) finds per-position
 // (src, mlen<=16-capped) candidates; this does the greedy parse, exact
 // forward/backward extension, byte emission and the compressed-vs-raw
 // decision for nb consecutive blocks of bsz bytes, in parallel.  Each

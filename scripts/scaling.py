@@ -49,8 +49,10 @@ def _child_mesh(n: int, bytes_per_dev: int) -> None:
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", os.path.join(REPO, ".jax_cache"))
     from zpack_tpu.parallel.pipeline import MeshCompressor, make_mesh
+    from zpack_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     devs = jax.devices()
     assert len(devs) >= n, f"need {n} devices, have {len(devs)}"

@@ -1,6 +1,6 @@
 """Shared zstd dictionary support (extension beyond the reference, which
 passes no dictionaries to zstd — lib/zpack_write.c:179; BASELINE.json
-north-star item "shared zstd dictionaries broadcast over ICI").
+north-star item "shared zstd dictionaries broadcast over the mesh").
 
 Interop oracle: the python-zstandard binding of libzstd, both directions.
 """

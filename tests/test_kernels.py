@@ -1,5 +1,5 @@
 """JAX kernel + mesh pipeline tests (run on the 8-device virtual CPU mesh
-set up in conftest; the driver dry-runs real multi-chip separately)."""
+set up in conftest; chip_smoke.py runs the same kernels on the GPU)."""
 
 import random
 
@@ -32,21 +32,96 @@ def test_xxh3_jax_bit_exact(n):
     assert xxh3_64_jax(data) == xxh3_64(data)
 
 
+@pytest.mark.parametrize("n", [240, 241, 255, 256, 1023, 1024, 1025, 1087, 1088,
+                               1089, 16 * 1024 + 1, 65536 + 64])
+def test_xxh3_jax_batch_crosses_boundaries(n):
+    """Lengths around the 240 B short-input cut, the 64 B stripe and the
+    1 KiB block: a batch of unlike inputs per length, each bit-exact."""
+    rng = np.random.default_rng(n)
+    batch = [rng.integers(0, 256, n, dtype=np.uint8).tobytes(), b"\0" * n,
+             _mix(n, seed=n + 1)]
+    assert [xxh3_64_jax(d) for d in batch] == [xxh3_64(d) for d in batch]
+
+
+@pytest.mark.parametrize("kind,n,depth", [("mix", 8192, 2), ("text", 8192, 8),
+                                          ("rand", 8192, 2), ("zeros", 8192, 2),
+                                          ("mix", 65536, 2)])
+def test_tokenizer_matches_numpy_reference(kind, n, depth):
+    """The device tokenizer reproduces codecs/match.sorted_chain_matches,
+    the plain numpy statement of its match search, bit for bit."""
+    import jax.numpy as jnp
+
+    from zpack_tpu.codecs.match import sorted_chain_matches
+
+    data = {
+        "mix": _mix(n, seed=n + depth),
+        "rand": bytes(random.Random(n).getrandbits(8) for _ in range(n)),
+        "zeros": b"\0" * n,
+        "text": (b"the reference and the kernel agree " * (n // 35 + 1))[:n],
+    }[kind]
+    arr = np.frombuffer(data, dtype=np.uint8)
+    src16, code = lz4_jax.tokenize_block_resort(jnp.asarray(arr), depth=depth, n_words=2)
+    got_src, got_mlen = lz4_jax.unpack_resort_host(src16, code)
+    want_src, want_mlen = sorted_chain_matches(arr, depth, 2)
+    np.testing.assert_array_equal(got_mlen, want_mlen)
+    np.testing.assert_array_equal(got_src, want_src)
+
+
+def test_huffman_gather_lookup_matches_onehot():
+    """The gather table lookup of the Huffman encoder equals the int8
+    one-hot matrix product it replaced, on random tables."""
+    import jax.numpy as jnp
+
+    from zpack_tpu.kernels.huffman_jax import _lookup_codes
+
+    rng = np.random.default_rng(12)
+    syms = rng.integers(0, 256, 4096).astype(np.uint8)
+    codes = rng.integers(0, 1 << 11, 256).astype(np.int32)
+    lens = rng.integers(0, 12, 256).astype(np.int32)
+    got_len, got_code = _lookup_codes(jnp.asarray(syms), jnp.asarray(codes),
+                                      jnp.asarray(lens))
+    tab3 = jnp.stack([lens, codes & 0x7F, codes >> 7], axis=1).astype(jnp.int8)
+    lut = jax.lax.dot_general(
+        jax.nn.one_hot(jnp.asarray(syms, jnp.int32), 256, dtype=jnp.int8), tab3,
+        (((1,), (0,)), ((), ())), preferred_element_type=jnp.int32)
+    np.testing.assert_array_equal(np.asarray(got_len), np.asarray(lut[:, 0]))
+    np.testing.assert_array_equal(np.asarray(got_code),
+                                  np.asarray(lut[:, 1] | (lut[:, 2] << 7)))
+
+
+def test_fse_gather_lookup_matches_onehot():
+    """The gather symbol lookup of the FSE encoder equals the f32 one-hot
+    einsum it replaced (exact at HIGHEST precision), on random tables."""
+    import jax.numpy as jnp
+
+    from zpack_tpu.kernels.fse_jax import NSYM, _symbol_lookup
+
+    rng = np.random.default_rng(13)
+    codes = rng.integers(0, NSYM, (16, 512)).astype(np.int32)
+    for tab in (rng.integers(0, 1 << 21, (16, NSYM)).astype(np.int32),
+                rng.integers(-511, 512, (16, NSYM)).astype(np.int32)):
+        got = _symbol_lookup(jnp.asarray(codes), jnp.asarray(tab))
+        oh = jax.nn.one_hot(codes, NSYM, dtype=jnp.float32)
+        want = jnp.einsum("bnc,bc->bn", oh, jnp.asarray(tab, jnp.float32),
+                          precision=jax.lax.Precision.HIGHEST).astype(jnp.int32)
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+
 @pytest.mark.parametrize("kind", ["mix", "rand", "zeros", "text"])
 def test_lz4_tokenize_roundtrip(kind):
     data = {
         "mix": _mix(16384),
         "rand": bytes(random.Random(1).getrandbits(8) for _ in range(16384)),
         "zeros": b"\0" * 16384,
-        "text": (b"orbit doubling parse on tpu! " * 600)[:16384],
+        "text": (b"orbit doubling parse on device " * 600)[:16384],
     }[kind]
-    comp = lz4_jax.compress_block_tpu(data)
+    comp = lz4_jax.compress_block_device(data)
     assert lz4block.decompress_block(comp, len(data)) == data
 
 
 def test_lz4_tokenize_partial_block():
     data = _mix(10000, seed=3)
-    comp = lz4_jax.compress_block_tpu(data)
+    comp = lz4_jax.compress_block_device(data)
     assert lz4block.decompress_block(comp, len(data)) == data
 
 
@@ -56,17 +131,15 @@ def test_tokenize_u16_matches_noscatter(kind):
     (pos, packed) formulation after host unpack/unsort."""
     import jax.numpy as jnp
 
-    from zpack_tpu.kernels.lz4_pallas import unsort_host
-
     data = {
         "mix": _mix(8192, seed=5),
         "rand": bytes(random.Random(6).getrandbits(8) for _ in range(8192)),
         "zeros": b"\0" * 8192,
-        "text": (b"one u16 per byte down the tunnel " * 256)[:8192],
+        "text": (b"one u16 per byte over the link! " * 256)[:8192],
     }[kind]
     arr = jnp.asarray(np.frombuffer(data, dtype=np.uint8))
     pos, packed = lz4_jax.tokenize_block_noscatter(arr, depth=2, n_words=2)
-    want_src, want_mlen = unsort_host(np.asarray(pos), np.asarray(packed))
+    want_src, want_mlen = lz4_jax.unsort_host(np.asarray(pos), np.asarray(packed))
     tok = lz4_jax.tokenize_block_u16(arr, depth=2, n_words=2)
     got_src, got_mlen = lz4_jax.unpack_u16_host(tok)
     np.testing.assert_array_equal(got_mlen, want_mlen)
@@ -80,12 +153,10 @@ def test_tokenize_resort_pair_matches_noscatter(n):
     reference formulation at any B <= 65536."""
     import jax.numpy as jnp
 
-    from zpack_tpu.kernels.lz4_pallas import unsort_host
-
     data = _mix(n, seed=n)
     arr = jnp.asarray(np.frombuffer(data, dtype=np.uint8))
     pos, packed = lz4_jax.tokenize_block_noscatter(arr, depth=2, n_words=2)
-    want_src, want_mlen = unsort_host(np.asarray(pos), np.asarray(packed))
+    want_src, want_mlen = lz4_jax.unsort_host(np.asarray(pos), np.asarray(packed))
     src16, code = lz4_jax.tokenize_block_resort(arr, depth=2, n_words=2)
     got_src, got_mlen = lz4_jax.unpack_resort_host(src16, code)
     np.testing.assert_array_equal(got_mlen, want_mlen)
@@ -141,20 +212,8 @@ def test_graft_entry():
     g.dryrun_multichip(8)
 
 
-def test_pallas_batched_xxh3():
-    """Pallas batched hash kernel (interpret mode on CPU) is bit-exact."""
-    rng = random.Random(77)
-    streams = [b"", b"short", b"x" * 240]
-    streams += [bytes(rng.getrandbits(8) for _ in range(rng.randint(241, 5000)))
-                for _ in range(40)]
-    from zpack_tpu.kernels.xxh3_pallas import xxh3_64_batch
-
-    got = xxh3_64_batch(streams)
-    assert all(g == xxh3_64(s) for g, s in zip(got, streams))
-
-
 def test_mesh_zstd_pipeline():
-    """TPU-tokenized zstd blocks (BASELINE config-5 shape) decode with both
+    """Device-tokenized zstd blocks (BASELINE config-5 shape) decode with both
     our decoder and the libzstd oracle."""
     import zstandard
 
@@ -397,29 +456,6 @@ def test_mesh_zstd_device_fse_roundtrip():
         fr_dev, max_output_size=len(data)) == data
     # device path must not cost ratio beyond the marginal-block fallbacks
     assert len(fr_dev) <= len(fr_host) * 1.01 + 64
-
-
-def test_batched_device_extract_zstd():
-    """parallel/extract.decompress_zstd_batched: all huffman literal
-    streams across frames/blocks decode in one device dispatch, bit-exact
-    vs the host decoder, incl. multi-frame concatenation, raw/RLE blocks
-    and libzstd-encoded foreign frames (role: lib/zpack_read.c:380)."""
-    import zstandard
-
-    from zpack_tpu.codecs.zstd import encode as zenc
-    from zpack_tpu.parallel.extract import decompress_zstd_batched
-
-    rng = np.random.default_rng(8)
-    mix = _mix(150000, seed=41)
-    ours = zenc.compress(mix, 3)
-    lib = zstandard.ZstdCompressor(level=19).compress(mix)
-    rle = zenc.compress(b"\x00" * 50000, 3)
-    raw = zenc.compress(bytes(rng.integers(0, 256, 30000).astype(np.uint8)), 3)
-    assert decompress_zstd_batched(ours) == mix
-    assert decompress_zstd_batched(lib) == mix
-    assert decompress_zstd_batched(rle) == b"\x00" * 50000
-    assert decompress_zstd_batched(ours + lib) == mix + mix  # concatenated
-    assert len(decompress_zstd_batched(raw)) == 30000
 
 
 def test_device_lz4_sequence_replay():

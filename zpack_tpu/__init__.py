@@ -1,6 +1,6 @@
-"""zpack-tpu: a TPU-native archiver/compression framework with the
-capabilities of LeadRDRK/ZPack (reference: /root/reference), built from
-scratch on JAX/XLA/Pallas.
+"""zpack-tpu: an archiver/compression framework with the capabilities of
+LeadRDRK/ZPack, built from scratch on JAX/XLA with a native C++ host
+engine; its device engine runs on JAX's default accelerator.
 
 Public API mirrors the reference's object model (lib/zpack.h): Reader,
 Writer, ZPackStream, CompressionMethod, plus the self-contained codecs

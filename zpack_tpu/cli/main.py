@@ -53,7 +53,7 @@ def print_help(out=None):
         "    -x <file>: exclude file from extraction\n"
         "    -h, --help: show this help message\n"
         "    --unsafe: allow files to be extracted outside of destination\n"
-        "    --engine <tpu|native|python>: select the compression engine\n"
+        "    --engine <device|native|python>: select the compression engine\n"
         "    --metrics: print per-phase throughput counters to stderr on exit\n"
     )
 
@@ -94,7 +94,7 @@ def parse_args(argv: list[str]) -> Options | None:
         elif a == "--engine":
             i += 1
             if i >= len(argv):
-                print("Error: --engine requires a parameter (tpu|native|python)")
+                print("Error: --engine requires a parameter (device|native|python)")
                 return None
             opts.engine = argv[i]
         elif a == "-m":
@@ -155,6 +155,14 @@ def parse_args(argv: list[str]) -> Options | None:
 # Commands
 # ---------------------------------------------------------------------------
 
+#: entries up to this size go through the device engine whole (one-shot
+#: codec calls on mesh block batches) instead of the host streaming codecs
+DEVICE_ONESHOT_LIMIT = 256 << 20
+
+
+def _device_engine() -> bool:
+    return os.environ.get("ZPACK_TPU_ENGINE") == "device"
+
 
 def _write_files_streaming(writer: Writer, files: list[tuple[str, str]], opts: Options) -> int:
     """parity: write_files (programs/commands.c:56-168): per-file chunked
@@ -165,10 +173,7 @@ def _write_files_streaming(writer: Writer, files: list[tuple[str, str]], opts: O
     threads); large files stream with bounded memory like the reference."""
     chunk = 128 << 10
     batch_limit = 64 << 20  # max bytes buffered for a batch
-    # the TPU engine compresses whole entries (mesh block batches), so
-    # one-shot even large files instead of the host streaming compressor
-    tpu_engine = os.environ.get("ZPACK_TPU_ENGINE") == "tpu"
-    oneshot_limit = (256 << 20) if tpu_engine else (1 << 20)
+    oneshot_limit = DEVICE_ONESHOT_LIMIT if _device_engine() else (1 << 20)
     pending: list[tuple[str, bytes]] = []
     pending_bytes = 0
 
@@ -372,9 +377,14 @@ def _extract(opts: Options, full_path: bool) -> int:
             continue
         jobs.append((entry, os.path.join(out_dir, name)))
 
+    device = _device_engine()
+
     def extract_one(entry, dest):
         P.mkdir_p(os.path.dirname(dest))
         with open(dest, "wb") as f:
+            if device and entry.uncomp_size <= DEVICE_ONESHOT_LIMIT:
+                f.write(reader.read_file(entry))
+                return
             for chunk in read_file_stream_iter(reader, entry):
                 f.write(chunk)
 
@@ -407,7 +417,7 @@ def _extract(opts: Options, full_path: bool) -> int:
         group = []
         group_bytes = 0
 
-    batchable = len(jobs) > 8 and hasattr(reader._source, "buf")
+    batchable = len(jobs) > 8 and hasattr(reader._source, "buf") and not device
     for entry, dest in jobs:
         if batchable and entry.uncomp_size <= (1 << 20):
             group.append((entry, dest))
@@ -557,15 +567,21 @@ def command_test(opts: Options) -> int:
     print("-- Testing files...")
     failed = 0
 
+    device = _device_engine()
+
     def verify_streaming(entry) -> bool:
         try:
+            if device and entry.uncomp_size <= DEVICE_ONESHOT_LIMIT:
+                reader.read_file(entry)
+                return True
             for _ in read_file_stream_iter(reader, entry):
                 pass
             return True
         except ZPackError:
             return False
 
-    batchable = (len(reader.file_entries) > 8 and hasattr(reader._source, "buf"))
+    batchable = (len(reader.file_entries) > 8 and hasattr(reader._source, "buf")
+                 and not device)
     # zstd entries of dict-bearing archives may reference the shared
     # dictionary, which the native batch codec doesn't know — streaming
     # verify (dict-aware) handles them instead
@@ -645,12 +661,13 @@ def main(argv: list[str] | None = None) -> int:
         print_help()
         return 1
     if opts.engine:
-        import os
-
         if opts.engine == "python":
             os.environ["ZPACK_TPU_NO_NATIVE"] = "1"
-        elif opts.engine == "tpu":
-            os.environ["ZPACK_TPU_ENGINE"] = "tpu"
+        elif opts.engine == "device":
+            from ..utils.compile_cache import enable_compile_cache
+
+            os.environ["ZPACK_TPU_ENGINE"] = "device"
+            enable_compile_cache()
         elif opts.engine != "native":
             print(f"Error: unknown engine {opts.engine}")
             return 1

@@ -2,8 +2,8 @@
 
 The reference dispatches on ``comp_method`` at every (de)compress site
 (e.g. lib/zpack_read.c:352-443, lib/zpack_write.c:161-239).  Here each method
-is a :class:`Codec` with one-shot and streaming entry points; the TPU-accel
-paths (Pallas/JAX kernels) and the host paths share this interface.
+is a :class:`Codec` with one-shot and streaming entry points; the device
+paths (JAX kernels) and the host paths share this interface.
 """
 
 from __future__ import annotations

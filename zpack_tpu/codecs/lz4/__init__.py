@@ -25,17 +25,14 @@ class LZ4Codec(Codec):
         from ...utils.observe import metrics
 
         with metrics.phase("lz4.compress", len(data)):
-            if os.environ.get("ZPACK_TPU_ENGINE") == "tpu" and len(data) >= (64 << 10):
-                # explicit TPU engine: mesh-parallel tokenization
+            if os.environ.get("ZPACK_TPU_ENGINE") == "device" and len(data) >= (64 << 10):
+                # device engine: mesh-parallel tokenization
                 from ...parallel.pipeline import MeshCompressor
 
-                try:
-                    mc = _MESH_COMPRESSORS.get(level)
-                    if mc is None:
-                        mc = _MESH_COMPRESSORS[level] = MeshCompressor(level=level)
-                    return mc.compress(bytes(data))
-                except Exception:
-                    pass  # fall through to host engines
+                mc = _MESH_COMPRESSORS.get(level)
+                if mc is None:
+                    mc = _MESH_COMPRESSORS[level] = MeshCompressor(level=level)
+                return mc.compress(bytes(data))
             if len(data) > (2 << 20):
                 # one linked frame per 2 MiB chunk: encode chunks AND
                 # decode frames in parallel; the only ratio cost is one
@@ -54,14 +51,15 @@ class LZ4Codec(Codec):
         from ...utils.observe import metrics
 
         with metrics.phase("lz4.decompress", uncomp_size or len(data)):
-            if os.environ.get("ZPACK_TPU_ENGINE") == "tpu":
-                # explicit TPU engine: batched device sequence replay
-                from ...parallel.extract import decompress_lz4f_batched
+            if os.environ.get("ZPACK_TPU_ENGINE") == "device":
+                if not frame.has_linked_blocks(data):
+                    # device engine: batched device sequence replay
+                    from ...parallel.extract import decompress_lz4f_batched
 
-                try:
                     return decompress_lz4f_batched(bytes(data), uncomp_size)
-                except Exception:
-                    pass  # linked blocks / corrupt input: host path decides
+                # a linked block depends on the previous block's output,
+                # so it decodes on the host; counted, never silent
+                metrics.count("lz4.decompress.host_linked", len(data))
             if len(data) > (1 << 20):
                 # concatenated frames (the chunked encoder's output) decode
                 # frame-parallel; returns None for single/foreign frames

@@ -10,7 +10,7 @@ magic ‖ FLG ‖ BD ‖ [content size] ‖ [dict id] ‖ HC ‖ blocks… ‖ E
 The native one-shot encoder emits *linked* blocks (liblz4's default,
 ~4.5% smaller on mixed data; matches may reach 64 KiB into earlier
 blocks) with per-thread contiguous block ranges so parallel encode keeps
-a warm match table.  The pure-python and mesh/TPU encoders emit
+a warm match table.  The pure-python and device mesh encoders emit
 *independent* blocks (device-parallel encode AND decode).  Both modes are
 spec-valid and readable by any lz4f decoder, including the reference CLI.
 The decoder handles both (the golden archive uses linked blocks);
@@ -53,6 +53,33 @@ def _header(block_size: int, block_indep: bool, content_checksum: bool,
         desc += struct.pack("<Q", content_size)
     hc = (xxh32(desc, 0) >> 8) & 0xFF
     return struct.pack("<I", MAGIC) + desc + bytes([hc])
+
+
+def has_linked_blocks(data) -> bool:
+    """True when any lz4 frame in ``data`` declares linked blocks (FLG bit
+    0x20 clear).  Walks frame and block headers only; a malformed or
+    foreign stream stops the walk and is left to the decoder to report."""
+    pos, n = 0, len(data)
+    while n - pos >= 7:
+        (magic,) = struct.unpack_from("<I", data, pos)
+        if MAGIC_SKIPPABLE_MIN <= magic <= MAGIC_SKIPPABLE_MAX:
+            (size,) = struct.unpack_from("<I", data, pos + 4)
+            pos += 8 + size
+            continue
+        if magic != MAGIC:
+            return False
+        flg = data[pos + 4]
+        if not flg & 0x20:
+            return True
+        pos += 4 + 2 + (8 if flg & 0x08 else 0) + (4 if flg & 0x01 else 0) + 1
+        while n - pos >= 4:
+            (bh,) = struct.unpack_from("<I", data, pos)
+            pos += 4
+            if bh == 0:
+                break
+            pos += (bh & 0x7FFFFFFF) + (4 if flg & 0x10 else 0)
+        pos += 4 if flg & 0x04 else 0
+    return False
 
 
 def compress_frame(data: bytes, level: int = 1, *,

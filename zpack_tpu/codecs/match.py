@@ -2,7 +2,7 @@
 encoders (role parity: the match-finding inside the reference's vendored
 lz4/zstd, driven from lib/zpack_write.c:179,204).
 
-Parallel-first formulation (mirrored by the TPU kernels in
+Parallel-first formulation (mirrored by the device kernels in
 zpack_tpu.kernels): hash every 4-byte window, recover "previous occurrence"
 chains with one stable argsort instead of sequential hash-table updates,
 and extend candidate matches with vectorized compare rounds over a
@@ -139,3 +139,49 @@ def greedy_parse(b: np.ndarray, src: np.ndarray, mlen: np.ndarray,
         pos = p + ml
         lit_start = pos
     yield (lit_start, n - lit_start, None, None, None)
+
+
+def sorted_chain_matches(b: np.ndarray, depth: int = 2, n_words: int = 2):
+    """Plain statement of the device LZ4 tokenizer's match search
+    (kernels/lz4_jax.tokenize_block_resort, one block): 16-bit hash of
+    each 4-byte window, one stable sort by hash, candidates = the sorted
+    neighbours 1..depth rows up, lengths capped at 4*n_words, LZ4
+    end-of-block rules.  Returns position-ordered (src, mlen) int32
+    arrays (src = -1, mlen = 0 where no match) — the reference the device
+    kernel must reproduce bit for bit."""
+    B = len(b)
+    capj = 4 * n_words
+    bp = np.concatenate([b, np.zeros(capj + 4, np.uint8)]).astype(np.uint32)
+    words = [bp[s:B + s] | (bp[s + 1:B + s + 1] << np.uint32(8))
+             | (bp[s + 2:B + s + 2] << np.uint32(16))
+             | (bp[s + 3:B + s + 3] << np.uint32(24)) for s in range(0, capj, 4)]
+    h = (words[0] * _HASH_MUL) >> np.uint32(16)
+    ps = np.argsort(h, kind="stable").astype(np.int64)
+    hs = h[ps].astype(np.int64)
+    ws = [w[ps] for w in words]
+    best_len = np.zeros(B, np.int64)
+    best_src = np.zeros(B, np.int64)
+    for d in range(1, max(2, depth + 1)):
+        cand = np.concatenate([np.zeros(d, np.int64), ps[:-d]])
+        same = hs == np.concatenate([np.full(d, -1, np.int64), hs[:-d]])
+        close = same & (ps - cand <= 65535) & (ps > cand)
+        mlen = np.full(B, capj, np.int64)
+        carry = np.ones(B, bool)
+        for wi, w in enumerate(ws):
+            x = w ^ np.concatenate([np.zeros(d, np.uint32), w[:-d]])
+            eq = x == 0
+            tz = ((x & 0xFF) == 0).astype(np.int64) + ((x & 0xFFFF) == 0) \
+                + ((x & 0xFFFFFF) == 0)
+            mlen = np.where(carry & ~eq, 4 * wi + tz, mlen)
+            carry &= eq
+        mlen = np.where(close & (mlen >= MIN_MATCH), mlen, 0)
+        better = mlen > best_len
+        best_len = np.where(better, mlen, best_len)
+        best_src = np.where(better, cand, best_src)
+    ml = np.minimum(best_len, (B - 5) - ps)
+    ok = (best_len >= MIN_MATCH) & (ps < B - 12) & (ps > 0) & (ml >= MIN_MATCH)
+    src = np.full(B, -1, np.int32)
+    mlen = np.zeros(B, np.int32)
+    src[ps] = np.where(ok, best_src, -1)
+    mlen[ps] = np.where(ok, ml, 0)
+    return src, mlen

@@ -532,7 +532,7 @@ def xxh3_64(data: bytes, seed: int = 0) -> int:
     """One-shot XXH3-64 (bit-compatible with XXH3_64bits/_withSeed).
 
     Seed-0 hashing routes through the native C++ backend when available
-    (zpack_tpu.native, ~8 GB/s); the numpy path below is the always-
+    (zpack_tpu.native); the numpy path below is the always-
     available fallback and the oracle for tests.
     """
     data = bytes(data)

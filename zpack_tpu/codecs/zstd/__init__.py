@@ -46,20 +46,12 @@ class ZstdCodec(Codec):
                 return frame.decompress(data, uncomp_size, dictionary=dictionary)
             import os
 
-            if os.environ.get("ZPACK_TPU_ENGINE") == "tpu":
-                # explicit TPU engine: fully device-resident entropy decode
-                # (huffman + FSE + rep resolution + sequence execution);
-                # falls back to the literal-stage-only hybrid, then host
-                from ...parallel.extract import (decompress_zstd_batched,
-                                                 decompress_zstd_device)
+            if os.environ.get("ZPACK_TPU_ENGINE") == "device":
+                # device engine: fully device-resident entropy decode
+                # (huffman + FSE + rep resolution + sequence execution)
+                from ...parallel.extract import decompress_zstd_device
 
-                try:
-                    return decompress_zstd_device(bytes(data), uncomp_size)
-                except Exception:
-                    try:
-                        return decompress_zstd_batched(bytes(data), uncomp_size)
-                    except Exception:
-                        pass  # fall through to host engines (incl. dict probes)
+                return decompress_zstd_device(bytes(data), uncomp_size)
             if uncomp_size is not None:
                 # native zn_zstd_decompress is internally frame-parallel;
                 # the old >16 MiB host.zstd_decompress_parallel detour

@@ -201,7 +201,7 @@ def encode_literal_sections(lits_list: list[bytes], device_encoder=None) -> list
 
     With ``device_encoder`` (kernels.huffman_jax.DeviceHuffmanEncoder) every
     block's huffman bitstreams are built in ONE batched device dispatch —
-    the entropy stage of the mesh zstd pipeline runs on the TPU instead of
+    the entropy stage of the mesh zstd pipeline runs on the device instead of
     the host (BASELINE north star; role of the reference's vendored HUF_*
     behind lib/zpack_write.c:179)."""
     sections: list[bytes | None] = [None] * len(lits_list)
@@ -654,7 +654,7 @@ class StreamCompressor:
 
     Emits one frame per ~8 MiB of input; concatenated frames are valid
     zstd and stream-decodable (ZSTD_decompressStream re-inits per frame),
-    and chunk independence is what lets the TPU path compress chunks
+    and chunk independence is what lets the device path compress chunks
     data-parallel across the mesh."""
 
     CHUNK = 8 << 20

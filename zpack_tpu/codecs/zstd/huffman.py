@@ -6,7 +6,7 @@ The decoder is *parallel-first*: instead of a sequential bit-by-bit walk, it
 precomputes, for every bit position in the (backward) stream, the decoded
 symbol and next position — all with vectorized table gathers — then extracts
 the actual decode path by pointer-doubling (orbit enumeration).  That is the
-same massively-parallel decompression formulation used by the TPU kernels
+same massively-parallel decompression formulation used by the device kernels
 (zpack_tpu.kernels) and by GPU decompressors in the literature.
 """
 

@@ -5,7 +5,7 @@ vendored zstd (behind ``ZSTD_compressCCtx`` at lib/zpack_write.c:179,
 RFC 8878 §3.1.1.3.2) — together with kernels/huffman_jax.py this makes the
 mesh zstd entropy stage fully device-resident.
 
-TPU formulation: the three FSE state machines (LL/OF/ML) are inherently
+Device formulation: the three FSE state machines (LL/OF/ML) are inherently
 sequential per block, but only in the *state* dimension — so a single
 ``lax.scan`` walks all blocks' state chains in lockstep (3 small
 table-gathers of width n_blocks per step), while everything dense (code
@@ -70,6 +70,11 @@ def of_codes_np(ovs: np.ndarray) -> np.ndarray:
 # device kernel --------------------------------------------------------------
 
 
+def _symbol_lookup(codes, tab):
+    """tab[b, codes[b, n]] for every block b: (B, N) codes into (B, W)."""
+    return jnp.take_along_axis(tab, codes, axis=1)
+
+
 def _init_state(sym, st, dnb, dfs):
     """Vectorized fse.EncodeTable.init_state over the block batch."""
     d = jnp.take_along_axis(dnb, sym[:, None], axis=1)[:, 0]
@@ -103,27 +108,15 @@ def encode_seq_streams(r_llx, r_llnb, r_mlx, r_mlnb, r_ofx, r_ofnb,
 
     # bulk-gather the symbol-indexed deltas for every step up front (the
     # scan body then only does the state-table gathers)
-    # MXU one-hot lookups: generic gathers run ~100-175 Melem/s on the
-    # v5e (docs/roofline.md session-2 correction) while a one-hot matmul
-    # against these tiny (<=64-symbol) tables is ~free and exact — dnb
-    # < 2^21 and |dfs| < 512 are both f32-exact
-    def _lut(codes, tab):
-        oh = jax.nn.one_hot(codes, tab.shape[1], dtype=jnp.float32)
-        return jnp.einsum("bnc,bc->bn", oh, tab.astype(jnp.float32),
-                          precision=jax.lax.Precision.HIGHEST,
-                          ).astype(jnp.int32)
-
-    ll_d = _lut(r_llc, ll_dnb)
-    ll_f_ = _lut(r_llc, ll_dfs)
-    of_d = _lut(r_ofc, of_dnb)
-    of_f_ = _lut(r_ofc, of_dfs)
-    ml_d = _lut(r_mlc, ml_dnb)
-    ml_f_ = _lut(r_mlc, ml_dfs)
+    ll_d = _symbol_lookup(r_llc, ll_dnb)
+    ll_f_ = _symbol_lookup(r_llc, ll_dfs)
+    of_d = _symbol_lookup(r_ofc, of_dnb)
+    of_f_ = _symbol_lookup(r_ofc, of_dfs)
+    ml_d = _symbol_lookup(r_mlc, ml_dnb)
+    ml_f_ = _symbol_lookup(r_mlc, ml_dfs)
 
     # ONE concatenated state table: the scan body's three per-kind gathers
-    # fuse into a single (B, 3) take_along_axis — in-scan gathers are
-    # latency-bound per OP on this TPU (docs/roofline.md), so dispatching
-    # one instead of three is the scan's dominant cost lever
+    # fuse into a single (B, 3) take_along_axis, one gather per step
     W_of = of_st.shape[1]
     W_ml = ml_st.shape[1]
     cat_st = jnp.concatenate([of_st, ml_st, ll_st], axis=1)
@@ -339,7 +332,7 @@ class DeviceSequenceEncoder:
 
 
 # ---------------------------------------------------------------------------
-# Decode (round 5): batched FSE sequence-section decode + rep resolution
+# Decode: batched FSE sequence-section decode + rep resolution
 # ---------------------------------------------------------------------------
 #
 # Role parity: the FSE sequence half of ``ZSTD_decompressDCtx``

@@ -2,20 +2,18 @@
 
 Role parity: the HUF_* entropy stage of the reference's vendored zstd
 (behind ``ZSTD_compressCCtx`` at lib/zpack_write.c:179 and
-``ZSTD_decompressDCtx`` at lib/zpack_read.c:380), reformulated for the TPU:
+``ZSTD_decompressDCtx`` at lib/zpack_read.c:380), as batched device code:
 
 * **Encode** — symbols are looked up in a per-stream (256,) code table,
-  bit offsets come from one cumulative sum, and every code is OR-scattered
-  into a u32 bit plane as two disjoint-bit contributions (low word + carry
-  word).  Disjoint bits make add == or, so the whole stream is ONE
-  scatter-add — the house gather-free recipe (docs/architecture.md).
-  Batched over (streams, L) so many 64 KiB blocks encode per dispatch.
+  adjacent codes combine into 32-symbol groups, bit offsets come from one
+  cumulative sum, and every group is scatter-added into a u32 bit plane.
+  Disjoint bits make add == or.  Batched over (streams, L) so many
+  64 KiB blocks encode per dispatch.
 
-* **Decode** — the massively-parallel formulation already used by the
-  numpy oracle (codecs/zstd/huffman.py:_decode_one_stream): decode a
-  speculative (symbol, nbits) at EVERY bit position via one table gather,
-  then extract the true decode path by pointer doubling (log2(n) gather
-  rounds).  All shapes static, so the whole thing jits.
+* **Decode** — all streams walk in lockstep through one ``lax.scan``
+  (:func:`decode_streams_scan`); the speculative-decode + pointer-doubling
+  formulation (:func:`decode_streams`) stays as an alternative.  All
+  shapes static, so the whole thing jits.
 
 Bit-exactness is pinned against codecs/zstd/huffman.py in
 tests/test_kernels.py; the streams decode with libzstd.
@@ -80,8 +78,13 @@ def _combine_round(limbs, lens, n_out: int, kmax: int):
     return out, lA + lB
 
 
-def _encode_one_stream(syms, n, codes_tab, lens_tab, n_words: int,
-                       chunk_cols: int = 16384):
+def _lookup_codes(syms, codes_tab, lens_tab):
+    """Per-symbol (length, code) from one stream's (256,) tables."""
+    s = syms.astype(jnp.int32)
+    return jnp.take(lens_tab, s), jnp.take(codes_tab, s)
+
+
+def _encode_one_stream(syms, n, codes_tab, lens_tab, n_words: int):
     """One backward-read huffman stream from a padded symbol row.
 
     syms: (L,) uint8 symbols in ORIGINAL order (first n valid).
@@ -93,45 +96,19 @@ def _encode_one_stream(syms, n, codes_tab, lens_tab, n_words: int,
     total_bits - inclusive_cumsum(lens)[i] (symbols after i occupy the low
     bits so the backward reader meets symbol 0 first).
 
-    Scatters are the TPU's scarce resource (~140 Melem/s, cost purely
-    per element), so adjacent symbols are first combined in FIVE dense
-    tree rounds into one <=352-bit (32-symbol) contribution of eleven
-    u32 limbs: 12 scatter-adds per 32 symbols (0.375 elements/symbol vs
-    0.5 at oct granularity; phase split round 5: scatter was 16 of the
-    20.4 ms at oct).  The tree rounds themselves are nearly free
-    (~0.06 ms of 20.4 at 256x16K) and the generic multi-limb combine
-    (`_combine_round`) is plain VPU select/shift work.  Bit ranges of
-    distinct groups stay disjoint, so scatter-ADD == scatter-OR.
+    Adjacent symbols are first combined in FIVE dense tree rounds into
+    one <=352-bit (32-symbol) contribution of eleven u32 limbs, so the
+    bit plane takes 12 scatter-adds per 32 symbols instead of two per
+    symbol.  Bit ranges of distinct groups stay disjoint, so
+    scatter-ADD == scatter-OR.
     """
     L = syms.shape[0]
     assert L % 32 == 0, "bucketed stream lengths are multiples of 32"
     idx_r = jnp.arange(L, dtype=jnp.int32)
     valid = idx_r < n
-    # MXU one-hot lookup: per-stream take_along_axis-style gathers run
-    # ~100-175 Melem/s on the v5e and were 76% of this kernel's time
-    # (83 of 109 ms at 256x16K); a one-hot matmul against the tables is
-    # exact and fast.  int8 one-hot x int8 table -> int32 (the MXU's
-    # native int8 path) halves the f32 version's time again (4.3 ->
-    # 2.3 ms at 256x16K): the one-hot materialization is the HBM cost,
-    # and int8 is 4x smaller.  Codes (<= 11 bits) split into two base-128
-    # limbs so every table entry fits int8.  Chunked along L so live HBM
-    # stays O(S*C*256) at the 65536 bucket (advisor round-4 finding).
-    tab3 = jnp.stack(
-        [lens_tab, codes_tab & 0x7F, codes_tab >> 7], axis=1
-    ).astype(jnp.int8)  # (256, 3)
-    C = chunk_cols
-    sym_chunks = syms.astype(jnp.int32).reshape(L // C, C)
-    # unrolled python loop: lax.map's per-chunk dispatch measured slower
-    # than straight-line chunks (3.1 vs 2.3 ms at 256x16K)
-    lut = jnp.concatenate([
-        jax.lax.dot_general(
-            jax.nn.one_hot(sym_chunks[i], 256, dtype=jnp.int8), tab3,
-            (((1,), (0,)), ((), ())), preferred_element_type=jnp.int32)
-        for i in range(L // C)
-    ])
-    lens = jnp.where(valid, lut[:, 0], 0)
-    vals = jnp.where(valid, (lut[:, 1] | (lut[:, 2] << 7)).astype(jnp.uint32),
-                     jnp.uint32(0))
+    sym_lens, sym_codes = _lookup_codes(syms, codes_tab, lens_tab)
+    lens = jnp.where(valid, sym_lens, 0)
+    vals = jnp.where(valid, sym_codes.astype(jnp.uint32), jnp.uint32(0))
     # tree round 1 — pairs: symbol 2i occupies bits ABOVE symbol 2i+1
     # (backward stream: later symbols live at lower bit offsets)
     l0, l1, l2, l3 = lens[0::4], lens[1::4], lens[2::4], lens[3::4]
@@ -156,12 +133,8 @@ def _encode_one_stream(syms, n, codes_tab, lens_tab, n_words: int,
     widx = (off >> 5).astype(jnp.int32)
     words = _shift_limbs(limbs, off & jnp.uint32(31))  # 12 aligned words
     acc = jnp.zeros(n_words, dtype=jnp.uint32)
-    # (widx is monotone DESCENDING; the ascending indices_are_sorted hint
-    # measured no gain round 5.  A windowed (Q, 12) lax.scatter_add
-    # measured 135x SLOWER — XLA lowers windowed scatters to a serial
-    # form here.  Element scatters are the fast shape.  Limbs past a
-    # group's true bit length are zero, so out-of-range indices carry
-    # nothing and mode="drop" is safe.)
+    # (Limbs past a group's true bit length are zero, so out-of-range
+    # indices carry nothing and mode="drop" is safe.)
     for t, w in enumerate(words):
         acc = acc.at[widx + t].add(w, mode="drop")
     # closing sentinel bit (the decoder's start-position marker)
@@ -180,17 +153,8 @@ def encode_streams(syms, lens, codes_tab, lens_tab, *, n_words: int):
     codes_tab/lens_tab: (S, 256) int32 per-stream canonical code tables.
     Returns (words (S, n_words) uint32, total_bits (S,) int32).
     """
-    S, L = syms.shape
-    # bound the vmapped one-hot's live HBM to ~1 GB: S * C * 256 int8.
-    # C=16384 measured best at S=256 (no chunk loop at the 16K bucket,
-    # exactly at the 1 GB cap); larger padded batches shrink the chunk —
-    # all the way down to a 512 floor — instead of risking OOM at the
-    # 65536 bucket (advisor round-4 finding).
-    C = min(L, 16384)
-    while C > 512 and S * C * 256 > (1 << 30):
-        C >>= 1
     return jax.vmap(
-        lambda s, n, c, l: _encode_one_stream(s, n, c, l, n_words, C)
+        lambda s, n, c, l: _encode_one_stream(s, n, c, l, n_words)
     )(syms, lens, codes_tab, lens_tab)
 
 
@@ -205,9 +169,8 @@ class DeviceHuffmanEncoder:
     """Host wrapper: pack python-side literal streams into fixed device
     batches, run :func:`encode_streams`, trim the resulting bit planes.
 
-    One instance caches compiled programs per (L, n_words) bucket so a long
-    archive reuses a handful of fixed-shape executables (the remote-TPU
-    compile cost rule, CLAUDE.md).
+    Stream lengths and batch sizes are bucketed so a long archive reuses a
+    handful of fixed-shape executables instead of compiling per shape.
     """
 
     #: pad stream lengths to the next bucket so compiles stay bounded
@@ -215,7 +178,7 @@ class DeviceHuffmanEncoder:
 
     def __init__(self, mesh=None):
         #: optional jax.sharding.Mesh — the stream batch is sharded over
-        #: ALL its devices (data-parallel entropy coding over ICI)
+        #: ALL its devices (data-parallel entropy coding)
         self.mesh = mesh
 
     def _bucket(self, n: int) -> int:
@@ -228,8 +191,7 @@ class DeviceHuffmanEncoder:
     def _bucket_batch(s: int) -> int:
         """Pad the batch dim S to a power of two (min 8) so the number of
         pending blocks — which varies with every archive — does not trigger
-        a fresh XLA compile per distinct S (remote-TPU compiles cost
-        minutes; see CLAUDE.md)."""
+        a fresh XLA compile per distinct S."""
         n = 8
         while n < s:
             n <<= 1
@@ -330,14 +292,6 @@ def decode_streams(payloads, starts, symbols_tab, nbits_tab, *, max_bits: int,
     true decode path is the orbit of `starts`, extracted by prefix
     doubling — positions of the first 2^k symbols are known after k
     rounds, each round one bulk gather plus one jump-table composition.
-
-    A lax.scan over symbol steps (3 tiny gathers per step) was the r3
-    formulation; per-step gathers inside a scan run ~50 Melem/s on this
-    TPU while the SAME gathers issued in bulk run 20-280 Gelem/s
-    (scripts/tpu_primitives.py) — the r3 note deeming doubling "50x more
-    gather traffic" compared traffic, not achievable rate, and its 1.5
-    MB/s measurement was taken in a tokenizer-degraded process (see
-    tpu_bench.py GROUPS).  Bulk formulation measures ~100x the scan.
     """
     S, P = payloads.shape
     # +4 zero bytes in front: bit offset +32 makes k = p - max_bits
@@ -354,9 +308,7 @@ def decode_streams(payloads, starts, symbols_tab, nbits_tab, *, max_bits: int,
     sh = (k & 7).astype(jnp.uint32)
     w = jnp.take(w24, jb, axis=1)  # (S, D) monotone bulk gather
     win = ((w >> sh[None, :]) & mask).astype(jnp.int32)
-    # one packed-table gather (sym | nb << 8) instead of two: the two
-    # (S, D) table gathers were the single biggest gather after the
-    # doubling rounds, and sym/nb unpack is free VPU work
+    # one packed-table gather (sym | nb << 8) instead of two
     combo_tab = symbols_tab | (nbits_tab << jnp.int32(8))
     combo_all = jnp.take_along_axis(combo_tab, win, axis=1)
     sym_all = (combo_all & jnp.int32(0xFF)).astype(jnp.uint8)
@@ -384,13 +336,12 @@ def decode_streams(payloads, starts, symbols_tab, nbits_tab, *, max_bits: int,
 @partial(jax.jit, static_argnames=("max_bits", "n_out", "unroll"))
 def decode_streams_scan(payloads, starts, combo_tab, *, max_bits: int,
                         n_out: int, unroll: int = 4):
-    """Batched lockstep-scan decode — the round-5 gather-light redesign.
+    """Batched lockstep-scan decode.
 
     The speculative-decode + pointer-doubling formulation
     (:func:`decode_streams`) costs ~18 full (S, 8P) gather passes
-    (~95 gather-elements per symbol at the ~140 Melem/s generic-gather
-    rate — its real ~1.3 MB/s, docs/roofline.md §Round-4).  This kernel
-    instead walks all S streams in LOCKSTEP with one lax.scan: each
+    (~95 gather-elements per symbol).  This kernel instead walks all S
+    streams in LOCKSTEP with one lax.scan: each
     32-bit window gather covers TWO symbols (codes are <=11 bits and the
     top-aligned window keeps >=14 bits of shift room below the first
     symbol), and ``unroll`` windows per scan step amortize the per-step
@@ -493,16 +444,19 @@ class DeviceHuffmanDecoder:
                             n_symbols: list[int]):
         """Device-resident variant: returns (syms (Sp, n_out) uint8 DEVICE
         array, final_bits (S,) np.int32) — the caller composes further
-        device stages without a literal round-trip (round-5 transfer
-        discipline: one d2h fetch also degrades the process RTT ~300x,
-        docs/roofline.md).  final_bits[i] must be 0 for stream validity."""
+        device stages without a literal round-trip.  final_bits[i] must
+        be 0 for stream validity."""
         syms, pos, nb, S, n_out = self._decode_common(payloads, tables,
                                                       n_symbols)
         n = np.asarray(n_symbols, np.int32)
-        idx = jnp.asarray(np.maximum(n - 1, 0))
-        pos_n = jnp.take_along_axis(pos[:S], idx[:, None], axis=1)[:, 0]
-        nb_n = jnp.take_along_axis(nb[:S], idx[:, None], axis=1)[:, 0]
-        final = np.where(n > 0, np.asarray(pos_n) - np.asarray(nb_n), 0)
+        # index every padded row and slice on the host, so the gather's
+        # shape is the padded batch's and not the stream count's
+        idx = np.zeros((pos.shape[0], 1), np.int32)
+        idx[:S, 0] = np.maximum(n - 1, 0)
+        idx = jnp.asarray(idx)
+        pos_n = np.asarray(jnp.take_along_axis(pos, idx, axis=1)[:, 0])[:S]
+        nb_n = np.asarray(jnp.take_along_axis(nb, idx, axis=1)[:, 0])[:S]
+        final = np.where(n > 0, pos_n - nb_n, 0)
         return syms, final.astype(np.int32)
 
     def _decode_common(self, payloads: list[bytes], tables,

@@ -1,17 +1,13 @@
-"""Parallel LZ4 block encoding on TPU via JAX.
+"""Parallel LZ4 block encoding on the device via JAX.
 
-This is the TPU-native reformulation of LZ4 match finding + parsing
-(role parity: the encode path the reference delegates to liblz4,
-lib/zpack_write.c:204-211) as dense vector ops — no sequential hash-table
-updates, no data-dependent python control flow:
+LZ4 match finding + parsing (role parity: the encode path the reference
+delegates to liblz4, lib/zpack_write.c:204-211) as dense vector ops — no
+sequential hash-table updates, no data-dependent python control flow:
 
-  1. hash every 4-byte window (VPU),
+  1. hash every 4-byte window,
   2. previous-occurrence chains via one stable sort (XLA sort),
-  3. match validation + length in ONE wide strip compare: a single
-     lane-aligned (B, 128) contiguous byte-strip gather on the candidate
-     side vs a sliding-window matrix on the position side, leading-equal
-     count via cumulative AND — generic gathers are the scarce resource
-     on TPU, so the kernel spends exactly one per chain-depth step,
+  3. match validation + capped length by dense shifted compares of the
+     window words carried through the same sort (no gathers),
   4. greedy parse by pointer-jumping: the jump table is produced on
      device; orbit enumeration (16 doubling rounds) and byte
      serialization run vectorized on host where they are micro-cheap.
@@ -50,17 +46,14 @@ def _tz_bytes(x):
 def tokenize_block_noscatter(data: jax.Array, depth: int = 2, n_words: int = 2):
     """Scatter-free tokenizer: identical match search to
     :func:`tokenize_block` but returns results still in hash-sorted order
-    as ``(pos, packed)`` — the device-side unsort scatter costs more than
-    the whole sort on TPU (measured ~8.5 ms vs ~3.4 ms per 16x64 KiB
-    batch), while the host inverts the permutation with one vectorized
-    numpy scatter for free (see lz4_pallas.unsort_host).
+    as ``(pos, packed)``; the host inverts the permutation with one
+    vectorized numpy scatter (:func:`unsort_host`).
 
     ``n_words`` u32 window words ride the sort, capping the on-device
     match length at 4*n_words (the host makes lengths exact via
     resolve_matches_host / the native serializer).  The sort is the cost
-    center, so fewer payload operands = faster: w=2 measured 585 MB/s vs
-    w=4's 419 MB/s on 16 MB batches (real TPU, scripts/tpu_probe3.py)
-    while candidate selection quality is barely affected."""
+    center, so fewer payload operands sort faster, while candidate
+    selection quality is barely affected."""
     B = data.shape[0]
     capj = 4 * n_words
     b = data.astype(jnp.uint32)
@@ -120,12 +113,11 @@ def tokenize_block_u16(data: jax.Array, depth: int = 2, n_words: int = 2):
     """Match search as :func:`tokenize_block_noscatter` + a device-side
     re-sort back to position order, emitting ONE uint16 per byte:
     ``(src << 3) | (mlen - 3)`` (0 = no match) — 4x less d2h than the
-    (pos, packed) i32 pair, the hot lever on transfer-bound links.
+    (pos, packed) i32 pair.
 
-    The unsort is a second, single-operand sort of ``(pos << 16) | tok``
-    (unsort-by-sort measured 509 MB/s vs 153 for the scatter on a real
-    v5e, scripts/tpu_probe5.py).  Requires B <= 8192 (src fits 13 bits)
-    and capj <= 10 (length code fits 3 bits)."""
+    The unsort is a second, single-operand sort of ``(pos << 16) | tok``.
+    Requires B <= 8192 (src fits 13 bits) and capj <= 10 (length code
+    fits 3 bits)."""
     B = data.shape[0]
     capj = 4 * n_words
     assert B <= 8192 and capj <= 10
@@ -267,8 +259,7 @@ def tokenize_block(data: jax.Array, depth: int = 2):
     """Find the best match per position for one B-byte block (B static,
     B <= 65536 so positions fit in the low 16 bits of the sort key).
 
-    Gather-free formulation (generic gathers serialize on TPU): pack
-    (hash16 << 16 | pos16) into ONE u32 sort key and carry the first 16
+    Gather-free formulation: pack (hash16 << 16 | pos16) into ONE u32 sort key and carry the first 16
     window bytes as four u32 payload columns through the same sort; a
     hash-chain candidate at depth d is then simply the sorted neighbor d
     rows above, and match validation + capped length are dense shifted
@@ -520,9 +511,8 @@ def _replay_build(lit_bytes, seg_start, lit_start, lit_len, offset, n_seq,
 
 @jax.jit
 def _replay_rounds(f):
-    """4 doubling rounds + a changed flag (bulk gathers OUTSIDE any device
-    control flow — gathers inside scan/while compile to a serial form on
-    this TPU, docs/roofline.md)."""
+    """4 doubling rounds + a changed flag (bulk gathers outside any device
+    control flow; the host checks the flag between chunks)."""
     for _ in range(3):
         f = jnp.take_along_axis(f, f, axis=1)
     f2 = jnp.take_along_axis(f, f, axis=1)
@@ -624,10 +614,26 @@ class DeviceLZ4Replayer:
         return [out[i, : totals[i]].tobytes() for i in range(B)]
 
 
-def compress_block_tpu(data: bytes, depth: int = 2, n_words: int = 2) -> bytes:
-    """One LZ4 block, matcher on device, parse+serialize on host."""
-    from .lz4_pallas import unsort_host
+def unsort_host(pos: np.ndarray, packed: np.ndarray):
+    """Invert the hash-sort permutation of :func:`tokenize_block_noscatter`
+    on the host (vectorized scatter) and split the packed word: returns
+    (src, mlen) int32 arrays shaped like the inputs — identical contract
+    to :func:`tokenize_block`."""
+    pos = np.asarray(pos)
+    packed = np.asarray(packed)
+    out = np.empty_like(packed)
+    if pos.ndim == 1:
+        out[pos] = packed
+    else:
+        np.put_along_axis(out, pos, packed, axis=-1)
+    mlen = out >> 17
+    src = out & 0x1FFFF
+    src = np.where(mlen == 0, -1, src).astype(np.int32)
+    return src, mlen.astype(np.int32)
 
+
+def compress_block_device(data: bytes, depth: int = 2, n_words: int = 2) -> bytes:
+    """One LZ4 block, matcher on device, parse+serialize on host."""
     n = len(data)
     if n < MFLIMIT + 1:
         return lz4block.compress_block(data)

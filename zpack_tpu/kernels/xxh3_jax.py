@@ -1,11 +1,12 @@
-"""XXH3-64 on TPU via JAX.
+"""XXH3-64 on the device via JAX.
 
-TPUs have no native 64-bit integers, so every u64 is a (hi, lo) pair of
-uint32 lanes; 64-bit adds/multiplies are built from 16/32-bit limbs — the
-standard TPU formulation.  The stripe accumulation (the bandwidth-bound
-bulk of XXH3) is fully vectorized over stripes; the only sequential
-dependency is the per-1KiB-block scramble, carried by one lax.scan whose
-step is 8 lanes of scalar work.
+Every u64 is a (hi, lo) pair of uint32 lanes; 64-bit adds/multiplies are
+built from 16/32-bit limbs, so the kernel needs no 64-bit JAX mode.
+Whether native u64 is faster on the GPU is open (ROADMAP S5, D5).  The
+stripe accumulation (the bandwidth-bound bulk of XXH3) is fully
+vectorized over stripes; the only sequential dependency is the
+per-1KiB-block scramble, carried by one lax.scan whose step is 8 lanes
+of scalar work.
 
 Role parity: XXH3_64bits (reference usage: lib/zpack_write.c:256,
 lib/zpack_read.c:466); bit-exact against zpack_tpu.codecs.xxh3.

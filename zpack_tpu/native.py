@@ -260,7 +260,7 @@ def lz4_serialize_blocks(data: bytes, src: "np.ndarray", mlen: "np.ndarray",
                          block_size: int) -> bytes | None:
     """Assemble lz4f block sections from device match tables in one native
     call (greedy parse + exact extension + emission, threaded over blocks).
-    src/mlen: (nb, block_size) int32 rows from the TPU tokenizer."""
+    src/mlen: (nb, block_size) int32 rows from the device tokenizer."""
     lib = get_lib()
     if lib is None:
         return None

@@ -1,6 +1,6 @@
 """Mesh-parallel archive building: many entries × many blocks.
 
-This is the TPU-native counterpart of the reference's single-threaded
+This is the mesh-parallel counterpart of the reference's single-threaded
 `zpack_write_files` loop (lib/zpack_write.c:280-343): every entry is split
 into independent lz4f blocks, ALL blocks of ALL entries are tokenized
 data-parallel on the ("entry", "block") mesh, and the host performs the

@@ -4,7 +4,7 @@ The reference has no distributed anything (SURVEY.md §2: "Parallelism /
 distributed communication: none").  Here the mesh pipeline spans hosts via
 ``jax.distributed``: every process contributes its local devices to one
 global ("entry" × "block") mesh, each host tokenizes/serializes its own
-block range (data-parallel over DCN+ICI), and host 0 performs the ordered
+block range (data-parallel across hosts), and host 0 performs the ordered
 ragged gather of the variable-size compressed blocks — assembling a
 spec-conformant frame/archive exactly as the single-host path does.
 """
@@ -172,7 +172,7 @@ def build_archive_multihost(files: list[tuple[str, bytes]], level: int = 3,
     lib/zpack.h:337-341; this is the claimed differentiator):
 
     1. host 0 trains a shared zstd dictionary on entry samples and
-       broadcasts it (allgather — the DCN analog of the ICI dict
+       broadcasts it (allgather — the cross-host analog of the dict
        broadcast in the mesh pipeline),
     2. each host compresses its contiguous entry range against the
        dictionary into a LOCAL archive,

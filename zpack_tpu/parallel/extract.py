@@ -1,17 +1,14 @@
-"""Batched zstd extraction with device entropy decode.
+"""Batched device extraction of lz4 and zstd frames.
 
-Role parity: ``ZSTD_decompressDCtx`` at lib/zpack_read.c:380 — but instead
-of decoding one block at a time, the whole buffer's frames are walked
-structurally first, EVERY huffman literal stream (across all blocks of all
-frames) is decoded in ONE batched device dispatch
-(kernels/huffman_jax.DeviceHuffmanDecoder, the mirror of the encode-side
-mesh entropy stage), and the sequence execution then replays per block on
-the host with the pre-decoded literals.  Bit-exact vs the host decoder by
-construction (the literal decode kernel is pinned against
-huffman._decode_one_stream in tests/test_kernels.py).
+Role parity: ``LZ4F_decompress`` (lib/zpack_read.c:414-439) and
+``ZSTD_decompressDCtx`` (lib/zpack_read.c:380) — but instead of decoding
+one block at a time, the whole buffer's frames are walked structurally on
+the host first, and every block's entropy decode and sequence replay then
+runs in batched device dispatches.  Bit-exact vs the host decoders (the
+kernels are pinned against the python codecs in tests/test_kernels.py).
 
-Production consumer: ZstdCodec.decompress under ``ZPACK_TPU_ENGINE=tpu``
-(the CLI --engine tpu), and direct callers (bench).
+Production consumers: LZ4Codec/ZstdCodec.decompress under
+``ZPACK_TPU_ENGINE=device`` (the CLI ``--engine device``).
 """
 
 from __future__ import annotations
@@ -48,10 +45,11 @@ def decompress_lz4f_batched(data: bytes, max_out: int | None = None) -> bytes:
     and every compressed INDEPENDENT block replays its sequences in one
     batched device dispatch (kernels/lz4_jax.replay_sequences — role:
     the LZ4F_decompress loop, lib/zpack_read.c:414-439).  Frames with
-    linked blocks raise (the caller falls back to the host decoder:
-    history-dependence is inherently sequential)."""
+    linked blocks raise: their history-dependence is sequential, so
+    callers send them to the host decoder (LZ4Codec checks first)."""
     from ..codecs.lz4 import frame as lz4f
     from ..codecs.xxh3 import XXH32State, xxh32
+    from ..utils.observe import metrics
 
     pos = 0
     n = len(data)
@@ -128,8 +126,10 @@ def decompress_lz4f_batched(data: bytes, max_out: int | None = None) -> bytes:
             pos += 4
             hash_spans.append((frame_piece0, len(pieces) - frame_piece0, chk))
 
-    decoded = _lz4_replayer().decompress_blocks(comp_blocks, comp_bounds) \
-        if comp_blocks else []
+    with metrics.phase("extract.lz4_device") as ph:
+        decoded = _lz4_replayer().decompress_blocks(comp_blocks, comp_bounds) \
+            if comp_blocks else []
+        ph.nbytes = sum(len(d) for d in decoded)
     parts = [p[1] if p[0] == "raw" else decoded[p[1]] for p in pieces]
     for p0, cnt, chk in hash_spans:
         h = XXH32State(0)
@@ -141,107 +141,6 @@ def decompress_lz4f_batched(data: bytes, max_out: int | None = None) -> bytes:
     if max_out is not None and len(out) > max_out:
         raise DecompressError("lz4 frame output exceeds expected size")
     return out
-
-
-def decompress_zstd_batched(data: bytes, max_out: int | None = None) -> bytes:
-    """One-shot decompress of concatenated zstd frames with the huffman
-    literal stage batched onto the device (no dictionary support here —
-    dict frames take the host path in ZstdCodec)."""
-    # --- pass 1: structural walk; parse literal sections, collect streams
-    frames = []  # (header, [(btype, payload, rle_size, plan, lits_end)...])
-    streams: list[bytes] = []
-    tables = []
-    n_syms: list[int] = []
-    pos = 0
-    n = len(data)
-    while pos < n:
-        if n - pos < 4:
-            raise DecompressError("truncated frame magic")
-        (magic,) = struct.unpack_from("<I", data, pos)
-        if zframe.MAGIC_SKIPPABLE_MIN <= magic <= zframe.MAGIC_SKIPPABLE_MAX:
-            if n - pos < 8:
-                raise DecompressError("truncated skippable frame")
-            (size,) = struct.unpack_from("<I", data, pos + 4)
-            pos += 8 + size
-            continue
-        if magic != zframe.MAGIC:
-            raise DecompressError(f"bad zstd magic {magic:#x}")
-        pos += 4
-        header = zframe.parse_frame_header(data, pos)
-        pos += header.header_size
-        if header.dict_id:
-            raise DecompressError(
-                f"frame requires dictionary {header.dict_id} (none attached)")
-        lit_state = zframe.LiteralsState()
-        blocks = []
-        while True:
-            if n - pos < 3:
-                raise DecompressError("truncated block header")
-            bh = data[pos] | (data[pos + 1] << 8) | (data[pos + 2] << 16)
-            pos += 3
-            last = bh & 1
-            btype = (bh >> 1) & 3
-            bsize = bh >> 3
-            if btype == zframe.BLOCK_RLE:
-                payload = data[pos : pos + 1]
-                if len(payload) < 1:
-                    raise DecompressError("truncated RLE block")
-                pos += 1
-                blocks.append((btype, payload, bsize, None, 0))
-            else:
-                payload = data[pos : pos + bsize]
-                if len(payload) < bsize:
-                    raise DecompressError("truncated block")
-                pos += bsize
-                if btype == zframe.BLOCK_COMPRESSED:
-                    plan, lits_end = zframe.parse_literals_section(
-                        payload, 0, lit_state)
-                    if plan[0] == "huf":
-                        # record the device-batch slots this block owns
-                        base = len(streams)
-                        _, items, table = plan
-                        for s, cnt in items:
-                            streams.append(s)
-                            tables.append(table)
-                            n_syms.append(cnt)
-                        plan = ("batch", base, len(items))
-                    blocks.append((btype, payload, 0, plan, lits_end))
-                else:
-                    blocks.append((btype, payload, 0, None, 0))
-            if last:
-                break
-        chk = None
-        if header.has_checksum:
-            if n - pos < 4:
-                raise DecompressError("truncated content checksum")
-            (chk,) = struct.unpack_from("<I", data, pos)
-            pos += 4
-        frames.append((header, blocks, chk))
-
-    # --- pass 2: ONE batched device dispatch for every huffman stream
-    decoded = _device_decoder().decode_batch(streams, tables, n_syms) if streams else []
-
-    # --- pass 3: sequence decode + execution per block, literals injected
-    out = bytearray()
-    for header, blocks, chk in frames:
-        dec = zframe.FrameDecoder(header)
-        for btype, payload, rle_size, plan, lits_end in blocks:
-            lits_pos = None
-            if plan is not None:
-                if plan[0] == "done":
-                    lits_pos = (plan[1], lits_end)
-                else:
-                    _, base, cnt = plan
-                    parts = decoded[base : base + cnt]
-                    lits = parts[0].tobytes() if cnt == 1 else b"".join(
-                        p.tobytes() for p in parts)
-                    lits_pos = (lits, lits_end)
-            out += dec.decode_block(btype, payload, rle_size, lits_pos=lits_pos)
-        if chk is not None and (dec.hasher.digest() & 0xFFFFFFFF) != chk:
-            raise DecompressError("content checksum mismatch")
-    if max_out is not None and len(out) > max_out:
-        raise DecompressError("zstd output exceeds expected size")
-    return bytes(out)
 
 
 def decompress_zstd_device(data: bytes, max_out: int | None = None,
@@ -262,9 +161,18 @@ def decompress_zstd_device(data: bytes, max_out: int | None = None,
     6. host checksum verify + assembly.
 
     No host entropy work: the host never touches a bitstream.  Raises
-    DecompressError on malformed input; callers fall back to the host
-    decoder for unsupported shapes (dictionaries, offset codes > 30).
+    DecompressError on malformed input and on shapes the device path does
+    not take (dictionary frames, offset codes > 30).
     """
+    from ..utils.observe import metrics
+
+    with metrics.phase("extract.zstd_device") as ph:
+        out = _decompress_zstd_device(data, max_out, mesh)
+        ph.nbytes = len(out)
+    return out
+
+
+def _decompress_zstd_device(data: bytes, max_out: int | None, mesh) -> bytes:
     import numpy as np
 
     from ..codecs.zstd import seq as zseq
@@ -416,7 +324,7 @@ def decompress_zstd_device(data: bytes, max_out: int | None = None,
     # Every base/offset below is host-KNOWN (stream counts, literal totals
     # and nb_seq all come from headers), so assembly is pure device
     # scatters — no decoded data returns to the host before the final
-    # frame bytes (one d2h degrades dispatch RTT ~300x, docs/roofline.md).
+    # frame bytes.
     F = len(frames)
     blk_meta = []  # per frame: list of (lit_spec, slot, lit_total)
     f_lits, f_nseg, f_total = [], [], []
@@ -570,9 +478,11 @@ def decompress_zstd_device(data: bytes, max_out: int | None = None,
             done += 4
             if not bool(changed):
                 break
-        out_rows = _replay_emit(lit_rows, lit_idx, f)
+        # one copy of the padded rows, sliced on the host: a device-side
+        # slice per entry size would compile a program per size
+        out_rows = np.asarray(_replay_emit(lit_rows, lit_idx, f))
         for j, i in enumerate(live):
-            outs[i] = np.asarray(out_rows[j, : f_total[i]]).tobytes()
+            outs[i] = out_rows[j, : f_total[i]].tobytes()
 
     # ---- pass 6: checksum verify + assembly --------------------------
     result = bytearray()

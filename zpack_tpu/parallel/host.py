@@ -4,7 +4,7 @@ The native codec calls run through ctypes, which releases the GIL — so
 independent chunks compress/decompress on real OS threads across host
 cores.  Chunks become *separate frames* (zstd) or independent-block frame
 segments (lz4f): spec-valid concatenations that any conformant decoder
-streams through, and the same chunk independence the TPU mesh pipeline
+streams through, and the same chunk independence the device mesh pipeline
 and multi-host sharding rely on (BASELINE config 5: blocks sharded
 data-parallel across hosts — each host compresses its chunk range, host 0
 concatenates in order).

@@ -2,10 +2,10 @@
 
 The reference is single-threaded by design (no threads/MPI/NCCL anywhere;
 lib/zpack.h:337-341 only documents per-context thread rules).  Parallelism
-is therefore *our* addition, TPU-style (BASELINE.json north star): archive
+is therefore *our* addition (BASELINE.json north star): archive
 entries and intra-entry blocks are sharded over a `jax.sharding.Mesh`
 ("entry" × "block" axes), each device tokenizes its blocks with the JAX
-LZ4 kernel, XLA collectives (psum over ICI) aggregate size stats, and the
+LZ4 kernel, an XLA collective (psum) aggregates size stats, and the
 host performs the ordered ragged gather of variable-size compressed blocks
 to assemble a spec-conformant archive (independent lz4f blocks decode with
 the reference CLI).
@@ -23,29 +23,22 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..kernels import lz4_jax
 
-#: default mesh block: 64 KiB like the native lz4f path.  8 KiB blocks run
-#: ~1.5x faster device-side (denser sort batches) and won slightly on the
-#: bench corpus, but block independence restarts history every block —
-#: long-period data (stride ~2 KB records) degrades 8x at 8 KiB while
-#: 64 KiB stays at ratio parity, so the robust size is the default.
+#: default mesh block: 64 KiB like the native lz4f path.  Block
+#: independence restarts history every block — long-period data (stride
+#: ~2 KB records) loses 8x in ratio at 8 KiB blocks while 64 KiB stays at
+#: ratio parity, so the robust size is the default.
 BLOCK = 64 << 10
 
 
-def make_mesh(devices=None, entry_axis: int | None = None) -> Mesh:
+def make_mesh(devices=None, entry_axis: int = 1) -> Mesh:
     """2D mesh over the available devices: ("entry", "block").
 
     Entries (archive files) shard over the outer axis, intra-entry blocks
-    over the inner — the archiver analog of dp × tp.
+    over the inner.  Blocks are independent and the devices are joined
+    all to all, so by default every device sits on the "block" axis.
     """
     devices = list(devices if devices is not None else jax.devices())
-    n = len(devices)
-    if entry_axis is None:
-        entry_axis = 1
-        for cand in (4, 2):
-            if n % cand == 0 and n >= cand * 2:
-                entry_axis = cand
-                break
-    block_axis = n // entry_axis
+    block_axis = len(devices) // entry_axis
     arr = np.array(devices[: entry_axis * block_axis]).reshape(entry_axis, block_axis)
     return Mesh(arr, ("entry", "block"))
 
@@ -57,28 +50,14 @@ def _step_fn(mesh: Mesh, depth: int, block_size: int, n_words: int = 2,
     For B <= 8192 the device re-sorts to position order and ships ONE
     uint16 per byte (kernels/lz4_jax.tokenize_block_u16) — 4x less d2h.
     Larger blocks stay in hash-sorted (pos, packed) i32 pairs with the
-    host inverting the permutation (tokenize_block_noscatter).  The XLA
-    w=2 formulation beat the fused Pallas bitonic kernel on the real chip
-    (585 vs 472 MB/s, scripts/tpu_probe{3,4}.py), so Pallas is opt-in via
-    ZPACK_TPU_PALLAS.
+    host inverting the permutation (tokenize_block_noscatter).
 
     ``dict_pad`` > 0 builds the shared-dictionary variant: the step takes a
-    second (dict_pad,) operand REPLICATED over the mesh (the ICI-broadcast
+    second (dict_pad,) operand REPLICATED over the mesh (the broadcast
     shared dictionary of the BASELINE north star), prepends it to every
     block's match window, and ships results for the data positions only."""
-    import os
-
-    from ..kernels import lz4_pallas
-
     window = dict_pad + block_size
-    if (
-        dict_pad == 0
-        and block_size == lz4_pallas.N
-        and jax.default_backend() not in ("cpu",)
-        and os.environ.get("ZPACK_TPU_PALLAS")
-    ):
-        mode = "pallas"
-    elif window <= 8192 and 4 * n_words <= 10:
+    if window <= 8192 and 4 * n_words <= 10:
         mode = "u16"
     elif window <= 65536 and 4 * n_words <= 10:
         mode = "pair"
@@ -119,12 +98,9 @@ def _step_fn(mesh: Mesh, depth: int, block_size: int, n_words: int = 2,
             mlen = code.astype(jnp.int32)
             mlen = jnp.where(mlen > 0, mlen + 3, 0)
             return src16.reshape(e, b, B), code.reshape(e, b, B), _est(mlen, B)
-        if mode == "pallas":
-            pos, packed = lz4_pallas.tokenize_blocks_device(flat, depth=depth)
-        else:
-            pos, packed = jax.vmap(
-                partial(lz4_jax.tokenize_block_noscatter, depth=depth, n_words=n_words)
-            )(flat)
+        pos, packed = jax.vmap(
+            partial(lz4_jax.tokenize_block_noscatter, depth=depth, n_words=n_words)
+        )(flat)
         # size estimate: literals + per-match overhead, reduced over the mesh
         mlen = packed >> 17
         return (
@@ -157,8 +133,7 @@ class MeshCompressor:
     """
 
     #: bytes processed per device per jitted step — one fixed-shape compiled
-    #: program (the remote TPU compiler scales badly with the vmap width)
-    #: reused across however much data flows through
+    #: program reused across however much data flows through
     BYTES_PER_DEVICE_STEP = 1 << 20
 
     #: u32 window words carried through the device sort; on-device match
@@ -232,14 +207,14 @@ class MeshCompressor:
     def _steps(self, data: bytes, step=None, mode=None, extra=()):
         """Like :meth:`_steps_raw` but unpacked to the standard
         (first_block, src, mlen, est) int32 match tables."""
-        from ..kernels.lz4_pallas import unsort_host
         from ..utils.observe import metrics
 
         unpack = {"u16": lambda h: lz4_jax.unpack_u16_host(*h),
                   "pair": lambda h: lz4_jax.unpack_resort_host(*h)}
         for lo, mode_s, host, est in self._steps_raw(data, step, mode, extra):
             with metrics.phase("mesh.host_unpack", host[0].size):
-                src_s, mlen_s = unpack.get(mode_s, lambda h: unsort_host(*h))(host)
+                src_s, mlen_s = unpack.get(
+                    mode_s, lambda h: lz4_jax.unsort_host(*h))(host)
             yield lo, src_s, mlen_s, est
 
     def tokenize(self, data: bytes, step=None, mode=None, extra=()) -> tuple[np.ndarray, np.ndarray, int, int]:
@@ -291,9 +266,7 @@ class MeshCompressor:
                     elif mode_s == "pair":
                         src_s, mlen_s = lz4_jax.unpack_resort_host(*host)
                     else:
-                        from ..kernels.lz4_pallas import unsort_host
-
-                        src_s, mlen_s = unsort_host(*host)
+                        src_s, mlen_s = lz4_jax.unsort_host(*host)
                     body = native.lz4_serialize_blocks(seg, src_s, mlen_s, B)
             if body is not None:
                 out += body
@@ -333,7 +306,7 @@ class MeshCompressor:
         ZPACK_TPU_NO_DEVICE_ENTROPY) falls back to host entropy coding.
 
         With ``dictionary``, the shared dict is broadcast over the mesh
-        (replicated device operand riding ICI on real hardware) and rides
+        (a replicated device operand) and rides
         every block's match window; each block becomes an independent
         dict-referencing zstd *frame* so offsets stay window-local."""
         import os
@@ -489,7 +462,7 @@ class MeshCompressor:
         step, mode = self._dict_step(d)  # raises if d + B > 65536
         dict_dev = jax.device_put(
             np.frombuffer(zd.content, dtype=np.uint8),
-            NamedSharding(self.mesh, P()),  # replicated = ICI broadcast
+            NamedSharding(self.mesh, P()),  # replicated = broadcast
         )
         src, mlen, nb, _est = self.tokenize(data, step, mode, (dict_dev,))
         wl = max(17, (d + B).bit_length())

@@ -384,7 +384,7 @@ class Reader:
                 for i, e in enumerate(ents)]
 
     def extract_iter(self, entry, chunk_size: int = 1 << 20, verify: bool = True):
-        """Chunked decode generator (TPU-pythonic face of the reference's
+        """Chunked decode generator (pythonic face of the reference's
         zpack_read_file_stream, lib/zpack_read.c:473-640)."""
         from .stream import read_file_stream_iter
 

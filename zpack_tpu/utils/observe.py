@@ -4,7 +4,7 @@ hooks.
 The reference's only observability is printf progress lines and the
 zpack_result code space (SURVEY.md §5).  Here every codec/pipeline phase
 can record bytes+seconds into a process-global registry, and
-:func:`trace` wraps a region in a jax.profiler trace for TPU timelines.
+:func:`trace` wraps a region in a jax.profiler trace for device timelines.
 """
 
 from __future__ import annotations
@@ -28,6 +28,11 @@ class PhaseStat:
         return self.bytes / self.seconds / 1e6 if self.seconds else 0.0
 
 
+@dataclass
+class PhaseRecord:
+    nbytes: int = 0
+
+
 class Metrics:
     def __init__(self):
         self._lock = threading.Lock()
@@ -35,16 +40,26 @@ class Metrics:
 
     @contextlib.contextmanager
     def phase(self, name: str, nbytes: int = 0):
+        """Time a region; yields a record whose ``nbytes`` the region may
+        set once it knows how many bytes it handled."""
+        rec = PhaseRecord(nbytes)
         t0 = time.perf_counter()
         try:
-            yield
+            yield rec
         finally:
             dt = time.perf_counter() - t0
             with self._lock:
                 s = self._stats[name]
                 s.calls += 1
                 s.seconds += dt
-                s.bytes += nbytes
+                s.bytes += rec.nbytes
+
+    def count(self, name: str, nbytes: int = 0) -> None:
+        """Count one untimed event (e.g. a fallback taken) and its bytes."""
+        with self._lock:
+            s = self._stats[name]
+            s.calls += 1
+            s.bytes += nbytes
 
     def snapshot(self) -> dict[str, dict]:
         with self._lock:
@@ -67,8 +82,8 @@ metrics = Metrics()
 
 
 @contextlib.contextmanager
-def trace(dirname: str = "/tmp/zpack_tpu_trace"):
-    """jax.profiler trace around a region (TPU op timeline for xprof)."""
+def trace(dirname: str):
+    """jax.profiler trace around a region (device op timeline)."""
     import jax
 
     jax.profiler.start_trace(dirname)

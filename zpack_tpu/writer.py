@@ -199,12 +199,12 @@ class Writer:
         # Few-but-large groups go per-entry instead: each entry's frame codec
         # parallelizes internally over all cores, whereas the batch call
         # would pin each large entry to a single worker (no nested pools).
-        # An explicit TPU engine also skips the shortcut so codec dispatch
+        # The device engine also skips the shortcut so codec dispatch
         # (and thus the mesh pipeline) sees every entry.
         batch_worthy = (
             len(batch) >= 8
             and max(len(d) for _, d, _ in batch) <= (8 << 20)
-            and os.environ.get("ZPACK_TPU_ENGINE") != "tpu"
+            and os.environ.get("ZPACK_TPU_ENGINE") != "device"
             and all(self._dict_for(o) is None for _, _, o in batch)
         )
         if batch_worthy and all(
@@ -244,7 +244,7 @@ class Writer:
         if (dictionary is None
                 and int(options.method) in (1, 2)
                 and len(data) > (2 << 20)
-                and os.environ.get("ZPACK_TPU_ENGINE") != "tpu"):
+                and os.environ.get("ZPACK_TPU_ENGINE") != "device"):
             entry = self._add_file_fused(filename, data, int(options.method),
                                          options.resolved_level())
             if entry is not None:
